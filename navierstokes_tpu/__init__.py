@@ -1,4 +1,4 @@
-"""navierstokes_tpu — a TPU-native incompressible Navier-Stokes framework.
+"""navierstokes_tpu — an incompressible Navier-Stokes framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 deal.II/Trilinos/MPI solver (denisuntila/NavierStokes-Capoferri_Cecchettini_Untila):
@@ -15,8 +15,8 @@ deal.II/Trilinos/MPI solver (denisuntila/NavierStokes-Capoferri_Cecchettini_Unti
 * Rank/device-count independent checkpoint & replay
   (reference: src/NavierStokes.cpp:501-828).
 
-Everything on the compute path is batched, statically-shaped JAX that XLA maps
-onto the TPU MXU/VPU; distribution uses `jax.sharding.Mesh` + `shard_map`
+Everything on the compute path is batched, statically-shaped JAX that XLA
+compiles for the GPU; distribution uses `jax.sharding.Mesh` + `shard_map`
 (cells sharded, DoF vectors replicated, scatter reductions via psum) instead of
 MPI domain decomposition.
 """

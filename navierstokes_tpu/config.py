@@ -1,4 +1,4 @@
-"""Runtime configuration for the TPU Navier-Stokes framework.
+"""Runtime configuration for the Navier-Stokes framework.
 
 The reference configures everything at compile time (macro ``DIM``,
 ``NS_INPUT`` inlet injection, hard-coded constants nu/p_out/Diameter —
@@ -147,10 +147,14 @@ class SolverConfig:
     #                  F-solve + one pressure-Poisson solve per step.
     #                  Same semi-implicit convection linearization and
     #                  dt order; O(dt^2) pressure splitting error.  The
-    #                  TPU performance scheme (needs operator='bsr').
+    #                  production scheme (needs operator='bsr').
     scheme: str = "monolithic"
     proj_f_maxiter: int = 150     # BiCGStab budget for the u* solve
-    proj_p_maxiter: int = 50      # CG budget for the pressure Poisson
+    # CG budget for the pressure Poisson.  At the 1M-DoF bench mesh the
+    # V-cycle-preconditioned CG needs up to ~53 iterations at start-up and
+    # where the inlet ramp ends (measured on an H100): a cap of 50 left
+    # those steps unconverged.  Converging steps stop at proj_tol anyway.
+    proj_p_maxiter: int = 100
     proj_rotational: bool = True  # rotational pressure update (+nu div u*)
     # BDF2 time derivative + second-order extrapolated convection
     # linearization C(2u^n - u^{n-1}) for the projection scheme: true
@@ -203,8 +207,8 @@ class SolverConfig:
     proj_schur_pin_ratio: float = 0.95
     # Relative tolerance of the projection sub-solves.  1e-4 is matched to
     # the O(dt^2) splitting error: measured Cd within 0.3% of the fully
-    # (1e-6) converged projection at the 1M-DoF bench point, at ~2.3x less
-    # work (scripts/exp_iters.py proj-tol1e4 vs proj-f200-p60).
+    # (1e-6) converged projection at the 1M-DoF bench point, with ~2.3x
+    # fewer Krylov iterations.
     proj_tol: float = 1.0e-4
 
     # Outer Krylov (src/NavierStokes.cpp:344-397)
@@ -214,7 +218,7 @@ class SolverConfig:
     # Compensated (double-float) iterative-refinement passes after the
     # monolithic solve (solvers/refine.py).  Breaks the fp32 attainable-
     # residual floor (~3e-6*||b||) that washed out small force
-    # coefficients (2D-1 Cl, VALIDATION.md round 2) — the TPU-native
+    # coefficients (2D-1 Cl, VALIDATION.md round 2) — the fp32
     # stand-in for the reference's all-f64 solve
     # (src/NavierStokes.cpp:348, 377).  0 = off.  Monolithic BSR fp32
     # only (the projection scheme's splitting error dominates its solver
@@ -236,13 +240,13 @@ class SolverConfig:
     alpha: float = 0.5            # aSIMPLE damping (src/NavierStokes.hpp:306)
 
     # Inner solves (reference: ILU-GMRES, rtol 1e-2, src/NavierStokes.cpp:972-973).
-    # On TPU the ILU is replaced by Jacobi-preconditioned GMRES with a fixed
-    # iteration cap (statically shaped under jit).
+    # Here the ILU is replaced by block-Jacobi or Jacobi preconditioning with
+    # a fixed iteration cap (statically shaped under jit).
     inner_tol: float = 1.0e-2
     inner_maxiter_f: int = 10
     inner_maxiter_s: int = 20
     # F-block preconditioner inside the inner velocity solve:
-    #   "bj"     — 128x128 tile-diagonal dense inverse (batched MXU solve,
+    #   "bj"     — tile-diagonal dense inverse (batched matmul Newton-Schulz,
     #              rebuilt per step; the ILU(0) replacement — ops/p1ell.py)
     #   "jacobi" — diagonal scaling only
     f_precond: str = "bj"
@@ -253,26 +257,22 @@ class SolverConfig:
     f_solver: str = "bicgstab"
     # BSR block-rows per block-Jacobi tile (tile size = this * bu nodes).
     # 0 => auto = max(1, 256 // bu), i.e. 256-node tiles regardless of the
-    # BSR block size: measured 25% faster overall than 128-node tiles at
-    # the 1M-DoF bench point (stronger preconditioner, fewer BiCGStab its).
+    # BSR block size: a stronger preconditioner than 128-node tiles (fewer
+    # BiCGStab iterations at the 1M-DoF bench point).
     bj_tile_blocks: int = 0
     # Block-Jacobi tile formulation (ops/p1ell.block_jacobi_tiles):
-    # "blocked" gathers whole (bu,bu) blocks (fast: few long gather rows;
-    # measured 1.9 vs 1.4 steps/s at the 1M-DoF 2D bench point) but its
-    # intermediates are lane-padded to minor 128 — at 3D scale that is
-    # 2 x 7.98 GB of padding HBM (OOM); "rows" gathers bu-wide rows
-    # (leaner, unlocked 1.8M-DoF 3D, but still materializes an 8x-padded
-    # reshape of the whole value array — 14.8 GiB at 3.39M DoF, the
-    # round-5 OOM); "scatter" assembles the tile values directly from the
+    # "blocked" gathers whole (bu,bu) blocks (few long gather rows) but
+    # its intermediates have a narrow minor axis, which the accelerator
+    # the solver was first built for padded to 128 lanes; "rows" gathers
+    # bu-wide rows; "scatter" assembles the tile values directly from the
     # per-cell convection matrices via a presorted segment-sum on top of
-    # a host-precomputed static base (no gather, no padded transient —
-    # the 3.39M-DoF 3D enabler).  "auto" picks blocked while the padded
-    # footprint stays < 8 GB, scatter beyond.
+    # a host-precomputed static base (no gather, no padded transient).
+    # "auto" picks blocked while that padded footprint stays < 8 GB,
+    # scatter beyond.  Not yet re-derived on a GPU.
     bj_tiles: str = "auto"
     # Read the F-block values in bfloat16 inside the PRECONDITIONER's inner
-    # solves (vectors and accumulation stay fp32).  Measured neutral-to-
-    # slightly-slower on v5e (the blocked matvec is compute-lowering-bound,
-    # not HBM-bound, because of the narrow rhs) — kept as an option.
+    # solves (vectors and accumulation stay fp32).  Not measured on a GPU
+    # yet; kept as an option.
     inner_bf16: bool = False
     # Keep the inverted block-Jacobi tiles (the dominant preconditioner
     # HBM stream, ~tile_nodes^2 * n_tiles bytes) in bfloat16 — only the
@@ -284,15 +284,14 @@ class SolverConfig:
     bj_bf16: bool = False
     # Newton-Schulz iterations for the per-step block-Jacobi tile
     # inversion, seeded by the static-operator inverses (ops/p1ell.py
-    # block_jacobi_invert): 2*bj_newton batched 256^3 matmuls (~8 ms at
-    # 1M DoF) instead of a ~326 ms batched LU; falls back to the LU
-    # in-graph when the seed is out of the contraction region.
-    # 0 = exact LU every step.
+    # block_jacobi_invert): 2*bj_newton batched 256^3 matmuls instead of a
+    # batched LU; falls back to the LU in-graph when the seed is out of
+    # the contraction region.  0 = exact LU every step.
     bj_newton: int = 3
     # Consistent-mass realization for the once-per-step M u^n product:
-    #   "auto"    — blocked in 2D (fast: reuses the F gather structure),
+    #   "auto"    — blocked in 2D (reuses the F gather structure),
     #               node-ELL in 3D (compact: the blocked form would double
-    #               the resident F-family HBM and break the ~500k-DoF fit)
+    #               the resident F-family memory)
     #   "blocked" | "node" — force either
     # Robustness note (diagnosed on-chip at the 1M-DoF CFL~8 bench point):
     # an IMPULSIVE start there sits on a knife edge — steps 2-4 stagnate
@@ -327,50 +326,28 @@ class SolverConfig:
     #             formulation; used by the sharded path)
     operator: str = "bsr"
     # BSR block size (velocity AND pressure block rows).  0 => auto = 16.
-    # The ISOLATED F matvec is gather-row-count bound (~2.4 ns/row,
-    # scripts/exp_gather_probe.py: per-matvec ms at the 477k-DoF 3D /
-    # 672k-DoF 2D probes
-    #   bu:     16     32     64
-    #   3D:   2.59   1.17   1.27
-    #   2D:   1.77   0.85   1.02   value GB 0.26/0.38/0.65 in 2D)
-    # so 32 looks 2x better — but END-TO-END the projection step measures
-    # faster at 16 (1.896 vs 1.811 steps/s, 1M-DoF 2D bench, identical
-    # iteration counts): the 1.5x value stream at 32 taxes the per-step
-    # convection scatter + block-Jacobi rebuild more than the matvec
-    # saves.  Keep 16 unless an end-to-end A/B at the target size says
-    # otherwise (NS_BENCH_OVERRIDES='{"bsr_block": 32}').
+    # Larger blocks mean fewer gather rows per matvec but a larger value
+    # stream (value GB 0.26/0.38/0.65 at bu 16/32/64 on a 672k-DoF 2D
+    # mesh) that the per-step convection scatter and block-Jacobi rebuild
+    # also pay.  16 won the end-to-end A/B on the accelerator the solver
+    # was first built for; not yet re-measured on a GPU.
     bsr_block: int = 0
     # Overflow split of the F block-ELL (ops/bsr.py): rows with more than
     # this many column-block slots spill the excess into virtual rows,
     # trimming ELL padding from every matvec's gather + value streams
     # (K_max 16 vs mean 9.5 on the 1M-DoF 2D graph -> ~30% less traffic).
     # 0 disables; -1 picks the row-count 90th percentile at build time
-    # (default; chip-validated at the 1M-DoF bench point: stable, ~6%
-    # faster end-to-end, identical physics).
+    # (default; validated at the 1M-DoF bench point: identical physics).
     bsr_f_kmax: int = -1
     # Overflow split of the G/B (pressure-coupling) block graphs, same
     # trick applied to the static gradient/divergence values: the unsplit
     # max-K ELL is only 0.44 / 0.67 full on the 305k-DoF 3D graph, so the
-    # split cuts ~2 GiB of resident HBM at 3.39M DoF (the round-5 3D OOM
-    # margin) plus the matching per-apply traffic.  -2 = auto (split
+    # split cuts ~2 GiB of resident fp32 values at 3.39M DoF plus the
+    # matching per-apply traffic.  -2 = auto (split
     # under the projection scheme; whole rows under monolithic — the CC
     # coarse assembly needs G block PAIRS within whole rows,
     # solvers/schur.coarse_matrix); -1 = split; 0 = off.
     bsr_gb_kmax: int = -2
-    # F matvec realization over the BSR values (ops/bsr.apply_f):
-    #   "xla"    — per-component gather + fused multiply-reduce (default)
-    #   "pallas" — fused multi-component Pallas kernel
-    #              (ops/pallas_matvec.py): one HBM pass over the value
-    #              array for ALL velocity components (~2x less value
-    #              traffic in 2D, ~3x in 3D)
-    # Default stays "xla": the round-4 on-chip A/B with trustworthy
-    # (chained host-pull slope) timing measured pallas SLOWER at both
-    # production points — 2D 672k DoF: 2.04 vs 1.87 ms/matvec; 3D 477k
-    # DoF: 4.69 vs 4.56 ms (scripts/exp_pallas_ab.py, logs/
-    # pallas_ab_{2d_honest,3d}.log, VALIDATION.md).  The column gather
-    # stays outside the kernel (Mosaic cannot lower `take`), so the
-    # kernel only fuses the value pass XLA already fuses.
-    f_matvec: str = "xla"
     # Two-level Schur solve (solvers/schur.py): pressure BSR blocks per
     # aggregate (coarse size = n_p1 / (bp * this)), V-cycle count and
     # Chebyshev smoothing steps per cycle.  0 => auto = max(1, 64 // bp),

@@ -4,7 +4,7 @@ Replaces deal.II's ``FE_SimplexP`` / ``FESystem`` machinery
 (reference: src/NavierStokes.cpp:31-57, src/NavierStokes.hpp:45-49) with
 explicit barycentric shape functions evaluated into small static numpy
 tables.  Those tables are contracted against per-cell geometric factors in
-the batched assembly kernels (ops/assembly.py) — the TPU-idiomatic
+the batched assembly kernels (ops/assembly.py) — the batched
 replacement for deal.II's per-cell FEValues loop.
 
 Conventions (fixed once, globally — this canonical ordering is also what

@@ -306,7 +306,7 @@ class TaylorHoodSpace:
         provides the per-quadrature-point factors, and ``face_data`` of a
         snapped tag returns per-point normals/JxW from the curved facet map.
 
-        This is the TPU-native answer to the reference's geometry pipeline,
+        This is the answer to the reference's geometry pipeline,
         where gmsh resolves the r=0.05 circle at the local mesh size
         (mesh/domain2D.geo:10) so the polygonal error shrinks with h; here
         the error drops to O(h^3) at any resolution.  Returns the tags that

@@ -26,7 +26,6 @@ Boundary tags follow the reference convention: 0=bottom/lateral walls,
 from __future__ import annotations
 
 import numpy as np
-from matplotlib.path import Path as _MplPath
 from scipy.spatial import Delaunay
 
 from navierstokes_tpu.mesh.geometry import Mesh
@@ -106,13 +105,27 @@ def _graded_interior_grid_2d(lx, ly, h, dist_fn, h_near, near_band,
     return pts
 
 
-def _delaunay_mesh_2d(lx, ly, h, hole_loops, hole_paths, extra_pts,
-                      dist_fn, h_near, near_band, smooth_iters=4):
+def _inside_loop(loop, pts):
+    """Even-odd point-in-polygon test of (n, 2) points against a closed
+    (m, 2) vertex loop (the last vertex connects back to the first)."""
+    x, y = pts[:, 0], pts[:, 1]
+    inside = np.zeros(len(pts), dtype=bool)
+    nxt = np.roll(loop, -1, axis=0)
+    for (x0, y0), (x1, y1) in zip(loop, nxt):
+        if y0 == y1:
+            continue                  # a horizontal edge crosses no ray
+        crosses = (y0 > y) != (y1 > y)
+        x_at = x0 + (y - y0) * ((x1 - x0) / (y1 - y0))
+        inside ^= crosses & (x < x_at)
+    return inside
+
+
+def _delaunay_mesh_2d(lx, ly, h, hole_loops, extra_pts, dist_fn, h_near,
+                      near_band, smooth_iters=4):
     """Delaunay triangulation of the box minus polygon holes.
 
     hole_loops: list of (n_i, 2) closed point loops lying ON the hole
     boundary (these become tagged obstacle boundary points).
-    hole_paths: matplotlib Paths for point-in-hole tests.
     """
     box_pts = _box_boundary_points_2d(lx, ly, h if h_near >= h else
                                       max(h_near, h / 2.0))
@@ -123,8 +136,8 @@ def _delaunay_mesh_2d(lx, ly, h, hole_loops, hole_paths, extra_pts,
                                         fixed_pts)
     # remove interior points inside holes (with margin)
     keep = np.ones(len(interior), dtype=bool)
-    for path in hole_paths:
-        keep &= ~path.contains_points(interior, radius=1e-12)
+    for loop in hole_loops:
+        keep &= ~_inside_loop(loop, interior)
     interior = interior[keep]
 
     pts = np.concatenate([fixed_pts, interior], axis=0)
@@ -135,8 +148,8 @@ def _delaunay_mesh_2d(lx, ly, h, hole_loops, hole_paths, extra_pts,
         cells = tri.simplices.astype(np.int64)
         cent = p[cells].mean(axis=1)
         keep = np.ones(len(cells), dtype=bool)
-        for path in hole_paths:
-            keep &= ~path.contains_points(cent)
+        for loop in hole_loops:
+            keep &= ~_inside_loop(loop, cent)
         # drop degenerate slivers
         e1 = p[cells[:, 1]] - p[cells[:, 0]]
         e2 = p[cells[:, 2]] - p[cells[:, 0]]
@@ -238,7 +251,6 @@ def channel_with_cylinder_2d(h=0.02, h_near=None, lx=2.2, ly=0.41,
             ring_pts.append(ring)
         rad += (2 * np.pi * r / n_theta) * (growth ** k)
 
-    hole_path = _MplPath(circle)
     extra = np.concatenate(ring_pts, axis=0) if ring_pts else None
 
     def dist_fn(p):
@@ -251,8 +263,8 @@ def channel_with_cylinder_2d(h=0.02, h_near=None, lx=2.2, ly=0.41,
             d = np.minimum(d, base + dw * scale)
         return d
 
-    mesh, _ = _delaunay_mesh_2d(lx, ly, h, [circle], [hole_path], extra,
-                                dist_fn, h_near, near_band)
+    mesh, _ = _delaunay_mesh_2d(lx, ly, h, [circle], extra, dist_fn, h_near,
+                                near_band)
     mesh = _classify_box_boundary(mesh, lx, ly).validate()
     # exact circle for superparametric P2 boundary cells (fem/spaces.py)
     mesh.snap_projectors = {4: _circle_projector(cx, cy, r)}
@@ -311,8 +323,6 @@ def naca_channel_2d(airfoil_points, h=0.015, h_near=None,
     keep[d < 1e-12] = False
     loop = loop[keep]
 
-    hole_path = _MplPath(loop)
-
     def dist_fn(p):
         # distance to polyline vertices (adequate for grading)
         from scipy.spatial import cKDTree
@@ -320,8 +330,8 @@ def naca_channel_2d(airfoil_points, h=0.015, h_near=None,
         dd, _ = tree.query(p, k=1)
         return dd
 
-    mesh, _ = _delaunay_mesh_2d(lx, ly, h, [loop], [hole_path], None,
-                                dist_fn, h_near, near_band)
+    mesh, _ = _delaunay_mesh_2d(lx, ly, h, [loop], None, dist_fn, h_near,
+                                near_band)
     return _classify_box_boundary(mesh, lx, ly).validate()
 
 

@@ -1,6 +1,6 @@
 """Host-side mesh container (flat numpy arrays).
 
-The TPU-native replacement for deal.II's ``parallel::fullydistributed::
+The replacement for deal.II's ``parallel::fullydistributed::
 Triangulation`` (reference: src/NavierStokes.hpp:232, src/NavierStokes.cpp:7-27):
 instead of distributing mesh objects over MPI ranks, we keep one canonical,
 globally-indexed flat representation on the host; device distribution happens
@@ -241,7 +241,7 @@ class Mesh:
 
         Space-filling-curve numbering makes any contiguous index range a
         compact spatial patch, so the blocked operators' neighbor-block
-        counts stay O(1) regardless of mesh size (ops/bsr.py) — the TPU
+        counts stay O(1) regardless of mesh size (ops/bsr.py) — the
         analogue of cache-blocking renumbering in CPU sparse solvers.
         Deterministic in the coordinates alone; cells and boundary faces
         are permuted consistently, so the canonical DoF ordering (and with

@@ -1,6 +1,6 @@
 // meshkit — native host-side mesh preprocessing kernels.
 //
-// The TPU framework's "runtime around the compute path": the O(n log n)
+// The framework's "runtime around the compute path": the O(n log n)
 // topology passes that stand between a raw mesh and the device arrays
 // (unique-edge extraction for P2 DoF numbering, boundary-facet extraction,
 // scatter-plan sorting).  The reference delegates these to deal.II's C++

@@ -1,4 +1,4 @@
-"""Batched per-cell assembly data — the TPU-native replacement for the
+"""Batched per-cell assembly data — the batched replacement for the
 reference's per-cell FEValues assembly loop (src/NavierStokes.cpp:133-330).
 
 Instead of assembling a distributed sparse matrix each step, we precompute

@@ -1,11 +1,12 @@
-"""Double-float (two-float) compensated arithmetic on TPU fp32.
+"""Double-float (two-float) compensated arithmetic in fp32.
 
-TPU v5e has no f64 ALU; XLA's f64 emulation (when available at all on a
-backend) is slow and opaque.  This module implements the standard
-error-free transformations (Knuth two-sum, Dekker split two-product) so
-selected reductions — Krylov dot products, residual evaluations, the
-lift/drag boundary integrals — can run with ~2^-48 effective precision
-while every hardware op stays a native fp32 VPU op.
+This module implements the standard error-free transformations (Knuth
+two-sum, Dekker split two-product) so selected reductions — Krylov dot
+products, residual evaluations, the lift/drag boundary integrals — can run
+with ~2^-48 effective precision while every op stays a plain fp32 op.  It
+was written for an accelerator without an f64 unit.  On a GPU the
+transforms stay exact when XLA compiles them (chip_smoke.py's df32 phase
+checks this on the card: no multiply-add contraction breaks them).
 
 Used by the iterative-refinement path of the monolithic solve
 (models/navier_stokes.py, ``SolverConfig.refine``) to recover the

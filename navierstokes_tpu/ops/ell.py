@@ -1,10 +1,8 @@
 """Node-graph ELL operators — the fast path for Krylov matvecs.
 
 The gather -> batched-matmul -> segment-sum formulation (ops/operators.py)
-re-does the element scatter on EVERY operator application: ~15 ms per
-matvec at ~400k DoF on a v5e, hopeless against the ~30 MB of traffic a
-matvec fundamentally needs (~40 us at HBM speed) — and a full Krylov step
-then breaks the TPU runtime's ~60 s per-program watchdog.
+re-does the element scatter on EVERY operator application, many times the
+~30 MB of traffic a matvec at ~400k DoF fundamentally needs.
 
 This module assembles the *node-coupling graph* once per step instead:
 

@@ -1,14 +1,14 @@
 """Matrix-free Taylor-Hood block operators as batched gather/matmul/scatter.
 
 One operator application is: gather DoF values per cell, contract with the
-per-cell scalar element matrices (batched einsum -> MXU/VPU), scatter-add
+per-cell scalar element matrices (batched einsum), scatter-add
 back with a presorted ``segment_sum``.  This replaces distributed Trilinos
 SpMV + `compress` halo exchange (reference: src/NavierStokes.cpp:292-294 and
 every Krylov matvec inside SolverGMRES, cpp:377).
 
 The scatter permutation is precomputed on the host so the on-device
-segment_sum runs with ``indices_are_sorted=True`` — the TPU-friendly form of
-FEM scatter-add (no atomics, no data-dependent control flow).
+segment_sum runs with ``indices_are_sorted=True`` — the accelerator-friendly
+form of FEM scatter-add (no data-dependent control flow).
 """
 
 from __future__ import annotations
@@ -131,8 +131,8 @@ def apply_blocks(cells: CellArrays, f_cell: jax.Array,
         yp = jnp.zeros_like(xp)
 
     # Layout pin: when this operator feeds a lax.while_loop carry (every
-    # Krylov matvec does), the gather->scatter chain otherwise sends XLA's
-    # TPU layout assignment into a pathological (>10 min at ~10^5 cells)
+    # Krylov matvec does), the gather->scatter chain otherwise can send
+    # XLA's layout assignment into a pathologically slow
     # negotiation between the gather-preferred and scatter-preferred layouts
     # of the carried vector.  Mixing the input back in (exact no-op) anchors
     # the output to the input layout; compile time drops to seconds.
@@ -154,7 +154,7 @@ def schur_diag(cells: CellArrays, node_weights: jax.Array,
                scat_p_diag: Scatter) -> jax.Array:
     """Diagonal of S = B W B^T with W = diag(node_weights) per velocity node:
     diag_S[j] = sum_{c,a,d} grad[c,a,d,j]^2 * w[node(c,a)].  Used as the
-    Jacobi scale of the inner Schur solves — the TPU stand-in for the
+    Jacobi scale of the inner Schur solves — the stand-in for the
     reference's ILU(S) (src/NavierStokes.cpp:959).
 
     NOTE: this cells-path value is an APPROXIMATION — it sums squares of

@@ -1,6 +1,6 @@
 """Explicit shard_map versions of the cell-parallel operators.
 
-The TPU equivalent of the reference's MPI owner-computes assembly +
+The device-mesh equivalent of the reference's MPI owner-computes assembly +
 ``compress()`` reduction (src/NavierStokes.cpp:164-167, 292-294) and of the
 ghost import/export inside every Trilinos SpMV (SURVEY.md par.3.1):
 
@@ -8,7 +8,7 @@ ghost import/export inside every Trilinos SpMV (SURVEY.md par.3.1):
     a 1-D device-mesh axis;
   * DoF vectors are replicated (a few MB at the reference's scales);
   * each operator application = local gather/einsum/segment_sum followed by
-    one ``psum`` over ICI — the single collective per matvec.
+    one ``psum`` across devices — the single collective per matvec.
 
 Krylov dot products need no collectives at all (vectors replicated), unlike
 the reference where every dot is an MPI allreduce.

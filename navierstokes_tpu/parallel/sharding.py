@@ -3,10 +3,10 @@
 The reference's only parallelism is MPI domain decomposition over mesh
 cells with owner-computes assembly + `compress()` halo reductions
 (SURVEY.md par.2; src/NavierStokes.cpp:19-23, 164-167, 292-294).  The
-TPU-native equivalent: shard the *cell arrays* (element matrices, DoF maps)
+Device-mesh equivalent: shard the *cell arrays* (element matrices, DoF maps)
 over a 1-D ``jax.sharding.Mesh`` axis and keep DoF vectors replicated; the
 scatter-add of shared-DoF contributions becomes a local segment_sum
-followed by a single ``psum`` over ICI.  Krylov dot products then need no
+followed by a single ``psum`` across devices.  Krylov dot products then need no
 extra collectives at all (vectors are replicated).
 
 At the reference's target scales (~1-5M DoF) the replicated DoF vectors

@@ -1,6 +1,6 @@
 """Jitted Krylov solvers (GMRES / flexible GMRES / CG) on pytrees.
 
-The TPU-native replacement for deal.II ``SolverGMRES`` over Trilinos vectors
+The JAX replacement for deal.II ``SolverGMRES`` over Trilinos vectors
 (reference: src/NavierStokes.cpp:348-377 outer solve, :978-989 inner solves).
 Everything is a single XLA program: Arnoldi under ``lax.while_loop`` with a
 statically-shaped Krylov basis, Givens-rotation least squares, and no host
@@ -169,8 +169,8 @@ def bicgstab(matvec: Callable, b, x0=None, *, tol=1e-6, atol=0.0,
 
     Short-recurrence Krylov for nonsymmetric systems: carries ~7 vectors and
     no Arnoldi basis, which keeps while-loop state small — used for the
-    aSIMPLE/aYosida inner solves where GMRES' (m+1, n) basis both wastes HBM
-    and (in nested loops) trips TPU runtime faults.  Two matvecs per
+    aSIMPLE/aYosida inner solves where GMRES' (m+1, n) basis would be carried
+    through the nested while loops.  Two matvecs per
     iteration; at the reference's loose 1e-2 inner tolerance
     (src/NavierStokes.cpp:972-973) a handful of iterations suffice.
     """

@@ -9,7 +9,7 @@ preconditioners (src/NavierStokes.cpp:934-1051):
   ``mmult`` building S is replaced by a matrix-free S application; the two
   ILU-preconditioned inner GMRES solves (rtol 1e-2, cpp:972-989) become
   Jacobi-preconditioned inner GMRES — ILU's sequential triangular solves
-  have no efficient TPU mapping, while diagonal scaling + a few extra
+  map poorly onto an accelerator, while diagonal scaling + a few extra
   Krylov iterations vectorize perfectly.
 * ``ayosida``   — Yosida variant with S = B (dt M_lumped^-1) B^T and a
   second F-solve in the velocity update (cpp:998-1051).
@@ -33,12 +33,11 @@ class InnerSolve:
     """Inner solve policy: Jacobi-preconditioned BiCGStab.
 
     The reference uses ILU-preconditioned GMRES at rtol 1e-2
-    (src/NavierStokes.cpp:972-989).  On TPU, ILU's sequential triangular
-    solves don't map to the hardware, and an Arnoldi basis carried through
-    the nested while loop (outer FGMRES body -> inner solver) both wastes
-    HBM and trips TPU runtime faults once it grows past tens of MB.
-    BiCGStab's short recurrence (~7 carried vectors, zero basis storage,
-    2 matvecs/iteration) is the TPU-shaped replacement; ``maxiter`` counts
+    (src/NavierStokes.cpp:972-989).  ILU's sequential triangular solves
+    map poorly onto an accelerator, and an Arnoldi basis carried through
+    the nested while loop (outer FGMRES body -> inner solver) costs
+    memory.  BiCGStab's short recurrence (~7 carried vectors, zero basis
+    storage, 2 matvecs/iteration) is the replacement; ``maxiter`` counts
     matvec pairs, so the reference-equivalent budget is about half the
     GMRES iteration count."""
     tol: float = 1.0e-2

@@ -2,7 +2,7 @@
 
 Header parity: ``time,deltat,GMRES_iters,time_prec_init,time_sol,Drag,Lift,
 Cd,Cl`` (reference: src/NavierStokes.cpp:446-447, rows at :484-488).
-On TPU the whole step is one fused XLA program, so "preconditioner init"
+Here the whole step is one fused XLA program, so "preconditioner init"
 and "solve" are not separately host-timed per step; we record the measured
 wall-clock per step of the containing chunk in ``time_sol`` and the (tiny)
 per-step share of operator rebuild time in ``time_prec_init``.

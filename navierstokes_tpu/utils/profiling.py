@@ -1,7 +1,7 @@
 """Tracing / profiling / debug hooks.
 
 The reference's observability is two std::chrono spans per step
-(src/NavierStokes.cpp:347, 375-390).  TPU-native equivalents:
+(src/NavierStokes.cpp:347, 375-390).  JAX equivalents:
 
 * ``trace(dir)``      — jax.profiler trace context (view in TensorBoard /
                         xprof); wraps any region, e.g. a solve chunk.

@@ -1,7 +1,7 @@
 """Scenario campaign driver (VERDICT round-2 item 5).
 
 Runs the previously-unexercised scenario drivers end-to-end on the
-attached TPU, archives each forces csv under artifacts/, and prints a
+attached accelerator, archives each forces csv under artifacts/, and prints a
 tail summary (mean/max Cd, Cl over the last 40%) per run.  Each run is
 a subprocess of the production CLI — the same entry point a user runs —
 bounded by a wall-clock timeout.

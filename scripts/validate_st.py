@@ -43,9 +43,10 @@ ap.add_argument("--wake-levels", type=int, default=None,
 ap.add_argument("--bsr-block", type=int, default=0,
                 help="BSR block size (0 = auto, see SolverConfig)")
 ap.add_argument("--steps-per-chunk", type=int, default=0,
-                help="cap the jitted scan chunk length (1 near the HBM "
-                     "limit: a second chunk-length variant is a second "
-                     "resident TPU executable arena)")
+                help="cap the jitted scan chunk length (1 near the "
+                     "device-memory limit: each chunk-length variant is a "
+                     "separately compiled program with its own "
+                     "temporaries)")
 ap.add_argument("--proj-poisson", default="laplacian",
                 choices=["laplacian", "schur"],
                 help="projection Poisson operator (schur = exact "
@@ -59,11 +60,12 @@ if args.hz is not None and args.case != "3d1":
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_nstpu"))
 if args.cpu:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
+from navierstokes_tpu.utils.runtime import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 import numpy as np
 

@@ -4,7 +4,7 @@ The reference validates its scenario drivers by eyeballing
 forces_vs_time.csv plots (analysis/plot_coefficients.ipynb); here every
 committed campaign trace gets an automated check: finite tail, physically
 plausible coefficient ranges, and monotone time.  Each test skips if its
-artifact has not been produced yet (the campaign runs on the TPU,
+artifact has not been produced yet (the campaign runs on an accelerator,
 scripts/run_scenarios.py).
 
 Reference counterparts: tests/{2,3}D/test_0{2,3}/src/*.cpp and

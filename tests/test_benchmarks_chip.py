@@ -1,19 +1,15 @@
-"""Schaefer-Turek benchmark regression (long-running; opt-in).
+"""Schaefer-Turek benchmark regression on a GPU (long-running).
 
-Run with NSTPU_TPU_TESTS=1 (any backend; ~10-20 min on a v5e chip, longer
-on CPU).  Asserts the 2D-1 steady coefficients against the published
-intervals with a small slack for the moderate mesh."""
-
-import os
+Asserts the published coefficient intervals, with a small slack for the
+moderate meshes.  Runs only where JAX finds a GPU (see tests/conftest.py
+for the command)."""
 
 import pytest
 
-pytestmark = pytest.mark.skipif(
-    not os.environ.get("NSTPU_TPU_TESTS"),
-    reason="long benchmark regression; set NSTPU_TPU_TESTS=1")
+pytestmark = pytest.mark.chip
 
 
-def test_st_2d1_coefficients(tmp_path):
+def test_st_2d1_coefficients(gpu, tmp_path):
     from navierstokes_tpu.config import InletConfig, SolverConfig
     from navierstokes_tpu.mesh import channel_with_cylinder_2d
     from navierstokes_tpu.models.navier_stokes import NavierStokes
@@ -39,10 +35,10 @@ def test_st_2d1_coefficients(tmp_path):
     assert -0.01 < cl < 0.03, cl
 
 
-def test_st_2d2_projection_coefficients(tmp_path):
+def test_st_2d2_projection_coefficients(gpu, tmp_path):
     """Validated production configuration (VALIDATION.md bolded row):
     BDF2 projection, h=0.015 + wake band, dt=0.00125 -> Cd_max 3.224,
-    Cl_max 1.019, St 0.300.  ~15 min on a v5e chip."""
+    Cl_max 1.019, St 0.300."""
     from navierstokes_tpu.config import InletConfig, SolverConfig
     from navierstokes_tpu.mesh import channel_with_cylinder_2d
     from navierstokes_tpu.models.navier_stokes import NavierStokes

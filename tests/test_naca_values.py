@@ -1,7 +1,7 @@
 """Value-level NACA 2408 sweep validation (VERDICT r2 item 7).
 
 The committed sweep artifacts (artifacts/naca_sweep/output_<angle>.csv,
-produced by the `sweep-naca` CLI on the TPU — scripts in sweep.log) are
+produced by the `sweep-naca` CLI in an earlier round) are
 checked against thin-airfoil theory: the lift-curve slope of a 2D airfoil
 is 2*pi/rad inviscid; at the sweep's Re = U*c/nu = 1.0*0.4/1e-3 = 400 the
 viscous (decambering + thick-BL) correction reduces it to ~55-100% of

@@ -1,7 +1,7 @@
 """Multi-device distribution tests on the virtual 8-way CPU mesh.
 
 Validates that the shard_map cell-parallel path (cells sharded, DoF vectors
-replicated, psum reductions — the TPU analogue of the reference's MPI
+replicated, psum reductions — the device-mesh analogue of the reference's MPI
 domain decomposition, SURVEY.md par.2) reproduces the single-device
 solution to solver tolerance."""
 
